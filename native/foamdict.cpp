@@ -4,7 +4,7 @@
 // (SURVEY.md §2.5: system/controlDict, system/fvSchemes with the fvsc
 // sub-dict, constant/thermophysicalProperties with the QGD sub-dict, field
 // files with boundaryField entries).  This native parser lets users of the
-// reference bring their case directories to the TPU framework unchanged:
+// reference bring their case directories to this framework unchanged:
 // it tokenizes the OpenFOAM dictionary grammar (C/C++ comments, #include-
 // style directives skipped, nested {} dictionaries, () lists, [] dimension
 // sets, ';'-terminated entries) and emits JSON consumed by

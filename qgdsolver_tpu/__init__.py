@@ -1,8 +1,9 @@
-"""qgdsolver_tpu — a TPU-native regularized gas/hydro dynamics framework.
+"""qgdsolver_tpu — a JAX regularized gas/hydro dynamics framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 unicfdlab/QGDsolver (OpenFOAM QGD/QHD solver family) for structured block
-meshes on TPU: face-centered fvsc operators, tau-regularized flux assembly,
+meshes on an accelerator: face-centered fvsc operators, tau-regularized
+flux assembly,
 explicit acoustic-CFL time stepping (QGD) and pressure-Poisson projection
 (QHD), sharded over `jax.sharding.Mesh` device grids.
 """

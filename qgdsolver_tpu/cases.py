@@ -2,7 +2,7 @@
 
 The reference ships OpenFOAM tutorial cases as its validation/benchmark
 vehicle (README.md papers table; BASELINE.json configs).  These builders are
-their TPU-framework counterparts: each returns (solver, initial_state).
+this framework's counterparts: each returns (solver, initial_state).
 """
 from __future__ import annotations
 
@@ -144,8 +144,7 @@ def supersonic_jet_varsc(shape=(512, 256), dtype=np.float32, mach=2.0):
     varScModel5 relaxed density-gradient sensor and the qgdFlux outflow
     pressure BC — the physically-correct QGDFoam jet configuration
     (reference jet tutorials run varSc sensors + qgdFlux patches;
-    varScModel5_8C correct(), qgdFluxFvPatchScalarField_8C updateCoeffs).
-    Fully supported by the fused Pallas kernel path."""
+    varScModel5_8C correct(), qgdFluxFvPatchScalarField_8C updateCoeffs)."""
     from .physics.qgdcoeffs import VarScModel5
 
     solver, state = supersonic_jet(shape=shape, dtype=dtype, mach=mach)
@@ -210,9 +209,7 @@ def scalar_box(shape=(64, 64), dtype=np.float64):
 def supersonic_duct_3d(shape=(256, 126, 126), dtype=np.float32, mach=2.0):
     """3D QGDFoam bench/parity case: a Mach-`mach` duct flow with a hot
     low-density spherical disturbance advecting through it.  All BCs are
-    scalar-valued (uniform inflow, zero-gradient outflow/walls) so the case
-    runs on the fused 3D x-slab kernel (ops.fused_qgd3d); the default shape
-    packs the (ny+2, nz+2) plane exactly into one (128, 128) tile set.
+    scalar-valued (uniform inflow, zero-gradient outflow/walls).
 
     The reference's primary workload is 3D (GaussVolPointBase3D,
     GaussVolPointBase3D_8C_source.html:41-963); this is the structured
@@ -226,7 +223,7 @@ def supersonic_duct_3d(shape=(256, 126, 126), dtype=np.float32, mach=2.0):
     u_in = mach * float(th.c(jnp.asarray(T_inf)))
     zg = bcm.ZeroGradient()
     bc_U = bcm.FieldBCs((
-        (bcm.FixedValue(jnp.asarray([u_in, 0.0, 0.0])), zg),
+        (bcm.FixedValue(jnp.asarray([u_in, 0.0, 0.0], dtype=dtype)), zg),
         (zg, zg), (zg, zg)))
     bc_p = bcm.FieldBCs(((zg, bcm.FixedValue(p_inf)),
                          (bcm.FixedValue(p_inf), bcm.FixedValue(p_inf)),
@@ -258,7 +255,7 @@ def supersonic_jet_3d_varsc(shape=(256, 126, 126), dtype=np.float32,
     quiescent box through a profiled slot in the x_lo plane (array-valued
     inlet BCs), varScModel5 shock sensor, qgdFlux regularizing-flux p BC
     on the outflow — the 3D counterpart of the 2D big-grid flagship
-    config; runs on the fused 3D x-slab kernel (ops.fused_qgd3d r5)."""
+    config."""
     from .physics.qgdcoeffs import VarScModel5
     from .solvers.qgd import QGDFoam
 
@@ -273,7 +270,7 @@ def supersonic_jet_3d_varsc(shape=(256, 126, 126), dtype=np.float32,
     prof = 0.5 * (np.tanh((0.3 - rr) / delta) + 1.0)  # (ny, nz) slot
     zg = bcm.ZeroGradient()
     # value array (3, 1, ny, nz): normal-axis dim kept as 1 (core.bc spec)
-    profj = jnp.asarray(prof)
+    profj = jnp.asarray(prof, dtype=dtype)
     bc_U = bcm.FieldBCs((
         (bcm.FixedValue(jnp.stack([u_jet * profj, jnp.zeros_like(profj),
                                    jnp.zeros_like(profj)])[:, None]), zg),

@@ -35,20 +35,16 @@ def _state_dt(state) -> float:
 
 
 def run_case(case_dir: str, max_steps=None, chunk: int = 50,
-             log=print, fused: str = "auto", devices=None) -> int:
+             log=print, devices=None) -> int:
     """Run the case to controlDict endTime; returns the step count.
 
-    fused: "auto" uses the fused Pallas kernel path when the config
-    supports it AND the backend is a TPU (the production fast path — the
-    carry stays in the kernel's frame layout between chunks and converts
-    back only for writes); "never" forces the composable step.
+    Every solver runs its composable step (`solver.make_step()`).
 
     devices: "PXxPY" decomposes the case over a (PX, PY) device mesh — the
-    reference's `decomposePar + mpirun <solver>` workflow (SURVEY.md §2.4).
-    On TPU with a fused-supported config the sharded fused kernel runs;
-    otherwise the shard_map composable decomposition
-    (parallel.sharding.build_spmd_step).  Field writes gather transparently
-    (shard_map outputs are global arrays).
+    reference's `decomposePar + mpirun <solver>` workflow (SURVEY.md §2.4)
+    — through the shard_map decomposition of the composable step
+    (parallel.sharding.build_spmd_step).  Field writes gather
+    transparently (shard_map outputs are global arrays).
     """
     import jax
 
@@ -77,55 +73,20 @@ def run_case(case_dir: str, max_steps=None, chunk: int = 50,
         write_control = str(control["writeControl"][0])
     write_interval = float(control.get("writeInterval", 0.0) or 0.0)
 
-    from_fused = None
     if devices:
         from .parallel import sharding as shd
+        from .solvers import particles as prt
 
         dmesh = shd.make_device_mesh(jax.devices()[: px * py],
                                      shape=(px, py), axis_names=("X", "Y"))
-        use_fused_sh = False
-        use_fused_sh3 = False
-        if fused == "auto" and jax.default_backend() == "tpu":
-            if (type(solver).__name__ == "QGDFoam"
-                    and solver.mesh.ndim == 2):
-                from .ops import fused_qgd2d
-
-                use_fused_sh = fused_qgd2d.supported(solver, sharded=True)
-            elif (type(solver).__name__ == "QGDFoam"
-                    and solver.mesh.ndim == 3 and py == 1):
-                from .ops import fused_qgd3d
-
-                use_fused_sh3 = fused_qgd3d.supported(solver)
-        if use_fused_sh:
-            from .ops import fused_qgd2d
-
-            step, to_sh, from_fused = fused_qgd2d.build_sharded_fused_step(
-                solver, dmesh)
-            state = to_sh(state)
-            log("sharded fused kernel path engaged (%dx%d mesh)" % (px, py))
-        elif use_fused_sh3:
-            from .ops import fused_qgd3d
-
-            step, to_sh, from_fused = \
-                fused_qgd3d.build_sharded_fused_step_3d(solver, dmesh)
-            state = to_sh(state)
-            log("sharded 3D fused pipeline engaged (%d-device x-ring)" % px)
-        else:
-            from .solvers import particles as prt
-
-            if isinstance(state, prt.PState):
-                # decomposePar of the cloud: slot blocks ordered by the
-                # parcels' resident shard
-                state = state._replace(cloud=prt.distribute_cloud(
-                    state.cloud, solver.mesh, dmesh))
-            step, to_spmd = shd.build_spmd_step(solver, dmesh, state)
-            state = to_spmd(state)
-            log("shard_map decomposition engaged (%dx%d mesh)" % (px, py))
-    elif (fused == "auto" and jax.default_backend() == "tpu"
-            and getattr(solver, "fused_supported", lambda: False)()):
-        step, to_fused, from_fused = solver.make_fused_step()
-        state = to_fused(state)
-        log("fused Pallas kernel path engaged")
+        if isinstance(state, prt.PState):
+            # decomposePar of the cloud: slot blocks ordered by the
+            # parcels' resident shard
+            state = state._replace(cloud=prt.distribute_cloud(
+                state.cloud, solver.mesh, dmesh))
+        step, to_spmd = shd.build_spmd_step(solver, dmesh, state)
+        state = to_spmd(state)
+        log("shard_map decomposition engaged (%dx%d mesh)" % (px, py))
     else:
         step = solver.make_step()
     run = jax.jit(lambda s: common.run_steps(step, s, chunk))
@@ -139,8 +100,7 @@ def run_case(case_dir: str, max_steps=None, chunk: int = 50,
                       else t + write_interval)
 
     def write():
-        view = from_fused(state) if from_fused else state
-        tdir = foam_write.write_state(case_dir, solver, view)
+        tdir = foam_write.write_state(case_dir, solver, state)
         log("writing fields to %s" % tdir)
         return tdir
 
@@ -225,15 +185,14 @@ def main(argv=None) -> int:
                     help="stop after N steps even before endTime")
     ap.add_argument("--chunk", type=int, default=50,
                     help="steps per jitted lax.scan chunk (default 50)")
-    ap.add_argument("--no-fused", action="store_true",
-                    help="force the composable step (skip the fused "
-                         "Pallas kernel path on TPU)")
     ap.add_argument("--devices", default=None, metavar="PXxPY",
                     help="decompose the case over a (PX, PY) device mesh "
                          "(the decomposePar + mpirun workflow), e.g. 4x2")
     args = ap.parse_args(argv)
+    from .utils import compile_cache
+
+    compile_cache.enable()
     run_case(args.case, max_steps=args.max_steps, chunk=args.chunk,
-             fused="never" if args.no_fused else "auto",
              devices=args.devices)
     return 0
 

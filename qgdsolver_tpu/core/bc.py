@@ -4,7 +4,7 @@ The reference implements BCs as OpenFOAM fvPatchField subclasses (reference
 QGD/BCs/: qgdFluxFvPatchScalarField.C, qhdFluxFvPatchScalarField.C,
 cosVelocityFvPatchVectorField.C).  Here a BC is a small frozen dataclass that
 maps the first interior cell layer to a ghost cell layer; all operators then
-work on ghost-padded arrays with uniform slicing (TPU/XLA friendly — no
+work on ghost-padded arrays with uniform slicing (XLA friendly — no
 scatter, no boundary special cases inside kernels).  The padding itself lives
 in ops/pad.py.
 

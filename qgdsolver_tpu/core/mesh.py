@@ -1,10 +1,10 @@
-"""Structured rectilinear block mesh for the TPU-native QGD framework.
+"""Structured rectilinear block mesh for the QGD framework.
 
 The reference (unicfdlab/QGDsolver) runs on unstructured OpenFOAM meshes; this
 framework deliberately targets structured rectilinear blocks so that every
-face-stencil operator becomes a fixed-pattern array-slicing op that XLA tiles
-onto the TPU VPU, and domain decomposition becomes plain array sharding over a
-`jax.sharding.Mesh`.
+face-stencil operator becomes a fixed-pattern array-slicing op that XLA fuses
+into elementwise device kernels, and domain decomposition becomes plain array
+sharding over a `jax.sharding.Mesh`.
 
 Geometry quantities mirror the reference definitions:
   * QGD face length scale  h_f = 2*min(|C_own-C_f|, |C_nei-C_f|)

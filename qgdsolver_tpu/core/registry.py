@@ -1,4 +1,4 @@
-"""Model registries — the TPU-native analogue of OpenFOAM run-time selection
+"""Model registries — this package's analogue of OpenFOAM run-time selection
 tables (reference fvscStencil_8C.html:59-95, QGDCoeffs_8C.html:58-117, and the
 makeThermo/makeReactionThermo instantiation tables).
 

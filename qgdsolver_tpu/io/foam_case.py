@@ -1,4 +1,4 @@
-"""Map OpenFOAM case dictionaries onto the TPU framework's config tree.
+"""Map OpenFOAM case dictionaries onto the framework's config tree.
 
 Mirrors the reference's startup reads (SURVEY.md §2.5):
   * system/controlDict: adjustTimeStep, maxCo, maxDeltaT, cTau, deltaT

@@ -1,7 +1,7 @@
 """OpenFOAM dictionary parsing — ctypes binding to the native parser.
 
 The reference is configured by OpenFOAM dictionaries (SURVEY.md §2.5); this
-module parses them so reference case directories work against the TPU
+module parses them so reference case directories work against this
 framework.  The hot path is the C++ tokenizer/parser in native/foamdict.cpp
 (built on demand with g++); a pure-Python fallback implements the same
 grammar for environments without a toolchain.
@@ -19,6 +19,14 @@ _LIB = None
 _TRIED = False
 
 
+def _stale(so: str, src: str) -> bool:
+    """True when the library must be (re)built from `src`."""
+    if not os.path.exists(src):
+        return False
+    return (not os.path.exists(so)
+            or os.path.getmtime(src) > os.path.getmtime(so))
+
+
 def _load_native():
     global _LIB, _TRIED
     if _TRIED:
@@ -26,14 +34,21 @@ def _load_native():
     _TRIED = True
     so = os.path.abspath(os.path.join(_NATIVE_DIR, "libfoamdict.so"))
     src = os.path.abspath(os.path.join(_NATIVE_DIR, "foamdict.cpp"))
-    if not os.path.exists(so) and os.path.exists(src):
+    if _stale(so, src):
+        # the library always comes from the committed source: (re)build it
+        # when missing or older than foamdict.cpp; build to a per-process
+        # name and rename, so concurrent processes never load a partial file
+        tmp = "%s.%d.tmp" % (so, os.getpid())
         try:
             subprocess.run(
                 ["g++", "-O2", "-fPIC", "-shared", "-std=c++17",
-                 "-o", so, src],
+                 "-o", tmp, src],
                 check=True, capture_output=True, timeout=120,
             )
-        except Exception:
+            os.replace(tmp, so)
+        except (OSError, subprocess.SubprocessError):
+            if os.path.exists(tmp):
+                os.remove(tmp)
             return None
     if os.path.exists(so):
         try:

@@ -1,6 +1,6 @@
 """Face-centered differential operators ("fvsc" layer).
 
-TPU-native re-design of the reference's fvsc library (reference QGD/fvsc/:
+A structured-mesh re-design of the reference's fvsc library (QGD/fvsc/:
 fvsc_8C.html:87-167 dispatch; leastSquaresStencil / GaussVolPointStencil /
 reducedFaceNormalStencil implementations).  On a structured rectilinear mesh
 the two full-stencil schemes (leastSquares, GaussVolPoint) coincide with the

@@ -2,7 +2,7 @@
 
 The reference delegates every `fvm::laplacian` solve (pressure Poisson
 QHDpEqn_8H_source.html:36-45, implicit diffusion QGDUEqn_8H_source.html:54-75)
-to OpenFOAM's distributed PCG/GAMG.  The TPU-native replacement is a
+to OpenFOAM's distributed PCG/GAMG.  The replacement here is a
 matrix-free preconditioned conjugate gradient in `jax.lax.while_loop`: the
 matvec is the same fused stencil laplacian as the explicit operators, the
 whole Krylov loop stays on device (dot products lower to `psum` under

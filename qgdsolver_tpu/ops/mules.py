@@ -4,7 +4,7 @@ The reference uses OpenFOAM's `MULES::explicitSolve`/`MULES::limit` for
 bounded scalar advection (mulesQHDFoam T-equation, MULESTEqn_8H_source.html:
 41-64, with global gMax/gMin bounds; interQHDFoam alpha1-equation,
 interQHDFoam_8C_source.html:246-273).  MULES is a flux-corrected-transport
-limiter of the Zalesak family; the TPU-native implementation below is the
+limiter of the Zalesak family; the implementation below is the
 classic Zalesak limiter with the same structure (low-order upwind transport +
 limited antidiffusive correction, iterated), expressed as pure per-axis array
 ops — every quantity is a fixed-pattern stencil, no cell loops.

@@ -76,8 +76,10 @@ def _ghost_layers(bc_lo, bc_hi, arr, mesh, a, t, vector):
     ax = _spatial_axis(arr.ndim, nd, a)
     i_lo = _sl(arr, ax, slice(0, 1))
     i_hi = _sl(arr, ax, slice(-1, None))
-    dx_lo = mesh.dx[a][0]
-    dx_hi = mesh.dx[a][-1]
+    # in the field's dtype: the mesh keeps f64 spacings, which would
+    # promote an f32 fixedGradient/qgdFlux ghost layer under x64
+    dx_lo = jnp.asarray(mesh.dx[a][0], dtype=arr.dtype)
+    dx_hi = jnp.asarray(mesh.dx[a][-1], dtype=arr.dtype)
     ncomp = arr.shape[0] if vector else 0
     ctx = spmd.current()
     sharded = ctx is not None and ctx.sharded(a)

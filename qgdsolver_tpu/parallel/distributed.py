@@ -1,15 +1,15 @@
-"""Multi-host bring-up + scaling measurement harness.
+"""Multi-process bring-up + scaling measurement harness.
 
 The reference scales across nodes with decomposePar + mpirun (SURVEY.md
-§2.4); the TPU-native counterpart is `jax.distributed` over DCN with the
-device mesh laid out so the halo-exchange axes ride ICI within a slice.
-This module provides:
+§2.4); the counterpart here is one JAX process per host joined by
+`jax.distributed`, with the device mesh laid out so that most halo
+exchanges stay between the devices of one host.  This module provides:
 
 * `initialize()` — jax.distributed bring-up with env-var fallbacks, safe to
   call unconditionally (no-op for single-process runs);
 * `host_mesh()` — an (X, Y) device mesh whose X axis is contiguous within
-  each host's local devices (halo ppermutes over X stay on ICI; only the Y
-  boundary between host blocks crosses DCN);
+  each host's local devices (halo ppermutes over X stay inside a host; only
+  the Y boundary between host blocks crosses the network);
 * `measure_scaling()` — points/s/device for a solver step over a device
   mesh vs the single-device run — the measurable stand-in for BASELINE.md's
   weak-scaling row (>=80% at N hosts) until multi-host hardware exists.
@@ -32,8 +32,10 @@ def initialize(coordinator_address: tp.Optional[str] = None,
     """Bring up jax.distributed for a multi-host run.
 
     Resolution order: explicit args -> JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars -> cluster auto-detection
-    (jax.distributed.initialize() with no args works on TPU pods).  Returns
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars.  Without either, nothing
+    is initialized: a plain GPU host has no cluster to detect, so a
+    multi-process run names its coordinator (`localhost:<port>` on one
+    host), process count and process id.  Returns
     True when a multi-process world was initialized, False for single-process
     (in which case nothing was touched — the single-chip path is unchanged).
     """
@@ -58,9 +60,11 @@ def host_mesh(axis_names=("X", "Y")):
 
     jax.devices() orders devices process-major on multi-host systems, so
     reshaping (num_hosts, devices_per_host) and using the per-host axis as
-    the mesh's X keeps the X halo ring on ICI; Y crosses hosts once per
-    block boundary (DCN), mirroring the reference's node-boundary MPI
-    traffic but with an order of magnitude fewer, larger messages.
+    the mesh's X keeps the X halo ring inside a host (NVLink between the
+    cards of one host); Y crosses hosts once per block boundary, mirroring
+    the reference's node-boundary MPI traffic but with an order of
+    magnitude fewer, larger messages.  On one host every card reaches
+    every other at the same rate, so the layout is the algorithm's alone.
     """
     devs = jax.devices()
     n_local = max(1, jax.local_device_count())
@@ -117,8 +121,8 @@ def measure_scaling(solver_factory, dmesh, n_steps: int = 50,
     shape_n = (base[0] * px, base[1] * py)
     shape_1 = shape_n if shared_cores else base
     solver1, state1 = solver_factory(shape_1)
-    # pin the 1-device reference to the mesh's platform (the bench calls
-    # this with a CPU mesh while the default backend is the TPU)
+    # pin the 1-device reference to the mesh's platform (a CPU mesh may
+    # be measured while the default backend is a GPU)
     dev0 = dmesh.devices.flat[0]
     state1 = jax.tree_util.tree_map(
         lambda x: jax.device_put(jax.numpy.asarray(x), dev0), state1)

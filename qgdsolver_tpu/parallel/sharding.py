@@ -1,13 +1,13 @@
-"""Domain decomposition over a TPU device mesh.
+"""Domain decomposition over a device mesh.
 
 The reference's only parallelism is MPI domain decomposition with 1-ring +
 vertex-corner halo exchange (SURVEY.md §2.4: OpenFOAM processorFvPatch plus
 the 600-line leastSquaresBase corner-process discovery,
-extendedFaceStencilFindNeighbours_8C_source.html:41-612).  The TPU-native
-replacement is GSPMD sharding of the structured block over a
+extendedFaceStencilFindNeighbours_8C_source.html:41-612).  The
+replacement here is GSPMD sharding of the structured block over a
 `jax.sharding.Mesh`: every stencil in ops/fvsc.py is a shifted slice of a
 ghost-padded array, which XLA's SPMD partitioner lowers to collective-permute
-halo exchanges over ICI automatically — including the diagonal (corner)
+halo exchanges between devices automatically — including the diagonal
 values, because the per-axis sequential padding transports corners in two
 hops exactly like the reference's two-phase exchange would.
 
@@ -78,7 +78,7 @@ def sharded_step(step_fn, state, mesh_ndim: int, dmesh: DeviceMesh):
 
     XLA GSPMD inserts all halo collective-permutes and reduction psums; the
     latency-hiding scheduler overlaps them with interior compute (the
-    TPU-native analogue of the reference's nonblocking PstreamBuffers
+    analogue of the reference's nonblocking PstreamBuffers
     exchanges, extendedFaceStencilScalarGrad_8C_source.html:122-268).
 
     NOTE: GSPMD re-partitions the ghost-concatenated arrays every pad — use
@@ -90,7 +90,7 @@ def sharded_step(step_fn, state, mesh_ndim: int, dmesh: DeviceMesh):
 
 
 # ---------------------------------------------------------------------------
-# shard_map decomposition of the composable step (production multi-chip path)
+# shard_map decomposition of the composable step (production multi-device path)
 # ---------------------------------------------------------------------------
 
 
@@ -124,7 +124,7 @@ def build_spmd_step(solver, dmesh: DeviceMesh, state,
                     step_fn_name: str = "make_step", **step_kwargs):
     """Decompose a solver's composable step over a device mesh via shard_map.
 
-    The TPU-native `decomposePar + mpirun <solver>` (SURVEY.md §2.4): the
+    This package's `decomposePar + mpirun <solver>` (SURVEY.md §2.4): the
     solver is rebuilt on a local block mesh and its UNMODIFIED `make_step()`
     is traced inside `shard_map` under an active `parallel.spmd` context —
     `ops.pad.ghost_pad` then fetches partition-edge ghosts from neighbour
@@ -141,10 +141,6 @@ def build_spmd_step(solver, dmesh: DeviceMesh, state,
     Returns (step, to_spmd): `step` is the jitted global-array step;
     `to_spmd` places a state pytree onto the device mesh.
     """
-    shard_map = getattr(jax, "shard_map", None)
-    if shard_map is None:  # pre-0.8 jax
-        from jax.experimental.shard_map import shard_map
-
     from ..core.mesh import Mesh
     from . import spmd
 
@@ -256,13 +252,8 @@ def build_spmd_step(solver, dmesh: DeviceMesh, state,
         with spmd.active(ctx):
             return local_step(s)
 
-    try:  # jax >= 0.8 renamed check_rep -> check_vma
-        wrapped = shard_map(body, mesh=dmesh, in_specs=(specs,),
-                            out_specs=specs, check_vma=False)
-    except TypeError:
-        wrapped = shard_map(body, mesh=dmesh, in_specs=(specs,),
-                            out_specs=specs, check_rep=False)
-    step = jax.jit(wrapped)
+    step = jax.jit(jax.shard_map(body, mesh=dmesh, in_specs=(specs,),
+                                 out_specs=specs, check_vma=False))
 
     def to_spmd(s):
         sh = jax.tree_util.tree_map(

@@ -7,7 +7,7 @@ global arrays instead of numpy constants — same semantics.
 The reference's MPI decomposition is mesh-agnostic: decomposePar hands every
 rank its own cell geometry, graded spacings and wedge radii included
 (extendedFaceStencilCalculateWeights_8C_source.html:165-229 exchanges true
-neighbour cell centres across processor faces).  The structured TPU
+neighbour cell centres across processor faces).  The structured
 counterpart: the global `core.mesh.Mesh` precomputes every separable 1-D
 geometry array (dx, interpolation weights w_face, center distances
 d_centers, QGD lengths h_face_1d) and the broadcastable products

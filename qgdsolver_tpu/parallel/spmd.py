@@ -11,7 +11,7 @@ instead of wrapping each solver by hand, a single trace-time context makes
 those two primitives shard-aware:
 
 * `ghost_pad` consults `spmd.current()`: on a sharded mesh axis the ghost
-  layer comes from the neighbour shard via `jax.lax.ppermute` (ICI), with the
+  layer comes from the neighbour shard via `jax.lax.ppermute`, with the
   physical-BC layer selected only on the global-boundary shards.  Axes are
   padded sequentially, so the second axis' exchange transports the corner
   ghosts of the first — exactly the reference's two-phase corner-process
@@ -22,7 +22,7 @@ those two primitives shard-aware:
 
 `parallel.sharding.build_spmd_step` activates the context while tracing a
 solver's unmodified `make_step()` inside `shard_map`: the same numerics run
-per-block with explicit collectives — the TPU-native analogue of
+per-block with explicit collectives — this package's analogue of
 `decomposePar + mpirun <solver>` with zero solver-code changes.
 """
 from __future__ import annotations

@@ -516,7 +516,7 @@ class SubcycledRK4(ChemistrySolver):
 # makeChemistryTabulationMethodsQGD_8C, TDAC path of
 # BasicChemistryModelsQGD_8C:48-60).
 #
-# TPU-native stance: OpenFOAM's TDAC reduces the mechanism PER CELL each step
+# Device stance: OpenFOAM's TDAC reduces the mechanism PER CELL each step
 # and tabulates ODE solutions in a binary tree — both are data-dependent
 # control flow that cannot live inside an XLA-compiled step.  Here reduction
 # runs at TRACE TIME against a reference state (the mechanism the compiled
@@ -719,7 +719,7 @@ class TDACChemistrySolver(ChemistrySolver):
 @register("chemistryTabulation", "ISATDevice")
 @dataclasses.dataclass(frozen=True)
 class DeviceISAT(ChemistryTabulation):
-    """Jit-compatible device-resident tabulation (the TPU-native ISAT).
+    """Jit-compatible device-resident tabulation (the device-side ISAT).
 
     OpenFOAM's ISAT grows a binary tree of ODE solutions on the host —
     data-dependent control flow XLA cannot compile, which is why the host

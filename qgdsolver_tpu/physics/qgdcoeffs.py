@@ -251,33 +251,6 @@ def fvc_smooth(field, coeff, max_iters: int = 10_000):
     return out
 
 
-def fvc_smooth_continue(f1, changed, coeff, max_iters: int = 10_000):
-    """Continue the fvc_smooth fixed point from an externally supplied
-    FIRST relaxation ring (f1 = max(f, nbr_max(f)/maxRatio), e.g. folded
-    into a Pallas slab kernel over the fresh fields) and its change flag
-    (changed = any(f1 > f), conservative-true allowed — the body is
-    idempotent at the fixed point, so an overeager flag only costs a
-    no-op sweep).  Bitwise-identical continuation to `fvc_smooth`."""
-    from ..parallel import spmd
-
-    max_ratio = 1.0 + coeff
-
-    def body(carry):
-        f, _, it = carry
-        fn = f
-        for _ in range(4):
-            fn = jnp.maximum(fn, _neighbour_max(fn) / max_ratio)
-        return fn, spmd.all_any(jnp.any(fn > f)), it + 4
-
-    def cond(carry):
-        _, ch, it = carry
-        return jnp.logical_and(ch, it < max_iters)
-
-    out, _, _ = jax.lax.while_loop(cond, body, (f1, changed,
-                                                jnp.asarray(1)))
-    return out
-
-
 @register("tau", "varScModel5")
 @dataclasses.dataclass(frozen=True)
 class VarScModel5(TauModel):
@@ -301,12 +274,10 @@ class VarScModel5(TauModel):
     const_sc_mask: tp.Any = None   # 0/1 cell array
     const_sc_value: float = 1.0
 
-    def sc_raw_update(self, mesh: Mesh, rho, sc_prev):
-        """The PRE-SMOOTH sensor update: Sc <- rC*(|grad rho|*h/rho) +
-        (1-rC)*Sc_prev, clamp, bad-quality floor, const-Sc cellSet —
-        reference ordering varScModel5_8C:214-232 up to the fvc::smooth.
-        Split out so the tiled fused pipeline can fold it into the slab
-        kernel (only the global smooth fixed point stays XLA-side)."""
+    def sc_update(self, mesh: Mesh, rho, sc_prev):
+        """The relaxed sensor update: Sc <- rC*(|grad rho|*h/rho) +
+        (1-rC)*Sc_prev, clamp, bad-quality floor, const-Sc cellSet, then
+        fvc::smooth — reference ordering varScModel5_8C:214-232."""
         from ..parallel import spmd as _spmd
 
         grad_rho = fvsc.grad_cell(rho, _zg(mesh.ndim), mesh)
@@ -322,14 +293,7 @@ class VarScModel5(TauModel):
             mask = _spmd.localize_cells(jnp.asarray(self.const_sc_mask),
                                         mesh.ndim)
             sc = jnp.where(mask > 0, self.const_sc_value, sc)
-        return sc
-
-    def sc_update(self, mesh: Mesh, rho, sc_prev):
-        """The full relaxed sensor update (raw + fvc::smooth).  Shared
-        verbatim by `correct()` and the fused-kernel pre-passes
-        (ops.fused_qgd2d) so both paths produce bit-identical Sc fields."""
-        return fvc_smooth(self.sc_raw_update(mesh, rho, sc_prev),
-                          self.smoothCoeff)
+        return fvc_smooth(sc, self.smoothCoeff)
 
     def correct(self, mesh: Mesh, *, c, p, rho, sc_prev, **_):
         tau = self.alpha * mesh.h_cell / c

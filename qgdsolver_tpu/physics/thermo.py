@@ -1,4 +1,4 @@
-"""Thermophysical models — TPU-native re-design of the reference thermo layer.
+"""Thermophysical models — a re-design of the reference thermo layer.
 
 The reference builds QGD-aware thermo classes on top of OpenFOAM's template
 zoo (reference QGD/thermoModels/: psiQGDThermo/hePsiQGDThermo — perfect-gas

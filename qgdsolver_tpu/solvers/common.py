@@ -9,7 +9,7 @@ Re-design of reference QGD/QGDcommon/ time-control includes:
 
 Everything is a pure on-device function; the adaptive dt lives in the solver
 state so a whole run can stay inside one `lax.scan`/`while_loop` without host
-syncs (the TPU-native replacement of the reference's per-step host-side
+syncs (the replacement of the reference's per-step host-side
 `runTime.setDeltaT`).
 """
 from __future__ import annotations

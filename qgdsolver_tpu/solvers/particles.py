@@ -4,7 +4,7 @@ Re-design of the reference's Lagrangian coupling (particlesQGDFoam_8C_source.
 html:50,112,125-130: basicThermoCloud with parcels.evolve(), momentum source
 rhoUSu = parcels.SU(U), energy source rhoESu = parcels.Sh(e);
 particlesQHDFoam_8C:119 evolves one-way).  OpenFOAM tracks parcels through an
-unstructured mesh with per-parcel face walks; the TPU-native cloud is a
+unstructured mesh with per-parcel face walks; the cloud here is a
 fixed-size structure-of-arrays with:
   * cell location by per-axis `searchsorted` on the rectilinear face
     coordinates (O(log n), fully vectorised — no face walking);
@@ -17,7 +17,7 @@ fixed-size structure-of-arrays with:
   * boundary handling: periodic wrap or deactivate-on-escape, per axis.
 
 All of evolve() is jittable; parcel count is static (inactive slots masked),
-which replaces OpenFOAM's dynamic parcel lists with a TPU-friendly layout.
+which replaces OpenFOAM's dynamic parcel lists with a static layout.
 """
 from __future__ import annotations
 
@@ -174,7 +174,7 @@ class ThermoCloud:
 def _migrate(c: CloudState, mesh) -> CloudState:
     """Move parcels that left this shard's block to the neighbour shard.
 
-    The TPU-native replacement of OpenFOAM's processor-boundary particle
+    The replacement of OpenFOAM's processor-boundary particle
     transfer (SURVEY.md §3.5 "particle migration PROCESS BOUNDARY"):
     per decomposed axis, parcels beyond the local block's faces ride a
     `jax.lax.ppermute` to the next/previous shard — axis-sequential, so a

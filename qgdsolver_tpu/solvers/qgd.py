@@ -335,9 +335,9 @@ class QGDFoam:
             #  * only ROW `a` of the Pi tensor is ever needed at a-faces
             #    (phiPi = Sf&Pif = area*Pif[a,:], phiPiU = area*Pif[a,:].Uf),
             #    so the other rows are never formed;
-            #  * no stacked (d,d,faces) tensors / dot_generals — XLA/Mosaic
-            #    fuses the scalar-component chains into VPU code ~20x faster
-            #    than the tensor-shaped formulation.
+            #  * no stacked (d,d,faces) tensors / dot_generals — XLA fuses
+            #    the scalar-component chains into elementwise kernels, where
+            #    the tensor-shaped formulation materialises every product.
             phiJm = [None] * nd
             phiJmU = [None] * nd
             phiP = [None] * nd
@@ -579,43 +579,6 @@ class QGDFoam:
         if external_sources:
             return step
         return lambda s: step(s, None)
-
-    # -- fused TPU kernel path ---------------------------------------------
-    def fused_supported(self) -> bool:
-        """True if this config can run on a fused whole-step Pallas kernel:
-        2D (ops.fused_qgd2d — uniform f32 mesh, perfect-gas thermo,
-        constScPrModel1-family or varScModel5 tau, explicit diffusion,
-        simple/qgdFlux BCs; whole-frame or HBM-tiled) or 3D
-        (ops.fused_qgd3d — x-slab pipelined grid at the same flagship
-        feature set: constScPr family AND varScModel5, qgdFlux p on the
-        x sides, array-valued inlet plane profiles)."""
-        if self.mesh.ndim == 3:
-            from ..ops import fused_qgd3d
-
-            return fused_qgd3d.supported(self)
-        from ..ops import fused_qgd2d
-
-        if not fused_qgd2d.supported(self):
-            return False
-        return (fused_qgd2d.whole_frame_viable(self)
-                or fused_qgd2d.tiled_supported(self))
-
-    def make_fused_step(self, interpret=None):
-        """(step, to_fused, from_fused): single-pallas-kernel step over
-        VMEM-resident fields, the HBM-tiled slab pipeline when the 2D frame
-        exceeds VMEM, or the 3D x-slab pipeline on 3D meshes — see
-        ops.fused_qgd2d / ops.fused_qgd3d for the designs.  `step` maps the
-        fused carry to itself; use to_fused/from_fused to convert to/from
-        the composable State."""
-        if self.mesh.ndim == 3:
-            from ..ops import fused_qgd3d
-
-            return fused_qgd3d.build_fused_step_3d(self, interpret=interpret)
-        from ..ops import fused_qgd2d
-
-        if fused_qgd2d.whole_frame_viable(self):
-            return fused_qgd2d.build_fused_step(self, interpret=interpret)
-        return fused_qgd2d.build_tiled_fused_step(self, interpret=interpret)
 
 
 def eye_vec(phiP_a, a, nd):

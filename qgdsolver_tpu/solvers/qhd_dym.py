@@ -2,7 +2,7 @@
 
 Re-design of reference QGDsolver/QHDDyMFoam (QHDDyMFoam_8C_source.html:
 44-60 createDynamicFvMesh, :109-135 mesh.update() + fvc::makeRelative(phi,U)
-+ mesh-Courant check).  The TPU-native structured-mesh counterpart supports
++ mesh-Courant check).  The structured-mesh counterpart supports
 two prescribed motion classes:
 
 * rigid translation (`mesh_velocity`: t -> (ndim,)) — the convective flux

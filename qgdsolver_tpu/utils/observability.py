@@ -3,16 +3,19 @@
 The reference's observability is Info-stream prints per step — Courant number
 (QGDCourantNo_8H:52), deltaT (setDeltaT-QGDQHD_8H:60), field max/min
 (QHDTEqn_8H:94, varScModel5 correct), execution time (QGDFoam_8C:160-162) —
-plus scheduled field writes.  TPU equivalents here:
+plus scheduled field writes.  Equivalents here:
   * `StepLogger` — periodic host-side log lines with Courant/dt/max-min and a
     points/s meter (device->host sync only at the logging cadence);
   * `trace` — `jax.profiler` trace context for TensorBoard-compatible
-    device profiles (replaces "no profiler hooks" in the reference).
+    device profiles (replaces "no profiler hooks" in the reference);
+  * `gpu_name_and_power_limit` — the card identity printed beside rates.
 """
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
+import typing as tp
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +51,24 @@ class StepLogger:
         self.out("  ".join(parts))
         self._t0 = now
         self._last_steps = done_steps
+
+
+def gpu_name_and_power_limit() -> tp.Optional[str]:
+    """The card's name and power limit as `nvidia-smi` reports them
+    (first card), or None where there is no `nvidia-smi`.  A card set
+    below its maximum power runs slower under load, so every rate is
+    reported beside this line."""
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (FileNotFoundError, subprocess.TimeoutExpired):
+        return None
+    if res.returncode != 0:
+        return None
+    lines = res.stdout.strip().splitlines()
+    return lines[0].strip() if lines else None
 
 
 @contextlib.contextmanager

@@ -11,6 +11,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from qgdsolver_tpu.core import bc as bcm
 from qgdsolver_tpu.io import foamdict, foam_case
@@ -801,14 +802,16 @@ def test_build_case_qhd_dym_oscillating(tmp_path):
     assert np.isfinite(np.asarray(s.T)).all()
 
 
-def test_build_case_3d_flagship_rides_fused_kernel(tmp_path):
+@pytest.mark.parametrize("devices", [None, "2x2"])
+def test_build_case_3d_flagship_runs_through_cli(tmp_path, devices):
     """An ingested reference-layout 3D case with varScModel5 + qgdFlux
-    (the production shock-capturing words) builds a config the fused 3D
-    flagship kernel covers (r5): a reference user's 3D tutorial lands on
-    the fast path, not the composable fallback."""
+    (the production shock-capturing words) runs through the case runner
+    — serial, and decomposed over a 2x2 mesh — and the fields it writes
+    are the composable step's, read back through the case reader."""
     import shutil
 
-    from qgdsolver_tpu.ops import fused_qgd3d
+    from qgdsolver_tpu import cli
+    from qgdsolver_tpu.io import foam_fields
     from qgdsolver_tpu.physics.qgdcoeffs import VarScModel5
 
     case = tmp_path / "duct3d"
@@ -880,15 +883,21 @@ mergePatchPairs ();
     assert solver.mesh.ndim == 3
     assert isinstance(solver.tau_model, VarScModel5)
     assert solver._flux_sides() == ((0, 1),)
-    # the ingested config IS flagship-kernel-eligible
-    assert fused_qgd3d.supported(solver)
-    assert solver.fused_supported()
-    # and the fused step runs it (interpret mode on CPU)
-    fstep, to_f, from_f = fused_qgd3d.build_fused_step_3d(solver,
-                                                          interpret=True)
-    fs = to_f(state)
-    for _ in range(3):
-        fs = jax.jit(fstep)(fs)
-    out = from_f(fs)
-    assert np.isfinite(np.asarray(out.rho)).all()
-    assert np.asarray(out.rho).min() > 0
+    s_ref = common.run_steps(jax.jit(solver.make_step()), state, 6)
+    U_ref, _, T_ref, p_ref = solver.primitives(s_ref)
+
+    n = cli.run_case(str(case), max_steps=6, chunk=3, log=lambda *_: None,
+                     devices=devices)
+    assert n == 6
+    mesh, patch_map, kept = foam_fields.load_block_mesh(str(case))
+    tdir = max((d for d in os.listdir(case)
+                if d not in ("0", "system", "constant")), key=float)
+    got = foam_fields.load_initial_fields(str(case), mesh, patch_map, kept,
+                                          time_name=tdir)
+    for name, ref in (("U", U_ref), ("p", p_ref), ("T", T_ref)):
+        a = np.asarray(ref, dtype=np.float64)
+        b = got[name][0]
+        assert np.isfinite(b).all(), name
+        scale = np.max(np.abs(a))
+        np.testing.assert_allclose(b / scale, a / scale, rtol=0,
+                                   atol=1e-6, err_msg=name)

@@ -116,3 +116,48 @@ def test_case_mapping():
     beta = th["mixture"]["transport"]["beta"]
     assert beta[0]["__dims__"] == [0, 0, 0, -1, 0, 0, 0]
     assert float(beta[1]) == 3e-3
+
+
+@pytest.mark.parametrize("layout, stale", [
+    ("no_library", True),
+    ("library_older", True),
+    ("library_newer", False),
+    ("no_source", False),
+])
+def test_native_library_staleness(tmp_path, layout, stale):
+    """The library is rebuilt when it is missing or older than the
+    committed foamdict.cpp, and never without a source to build from."""
+    import os
+
+    so, src = tmp_path / "libfoamdict.so", tmp_path / "foamdict.cpp"
+    if layout != "no_source":
+        src.write_text("// source\n")
+        os.utime(src, (2_000_000, 2_000_000))
+    if layout != "no_library":
+        so.write_text("")
+        t = 1_000_000 if layout == "library_older" else 3_000_000
+        os.utime(so, (t, t))
+    assert foamdict._stale(str(so), str(src)) is stale
+
+
+def test_stale_native_library_is_rebuilt(tmp_path, monkeypatch):
+    """A library older than foamdict.cpp (here a broken file) is rebuilt
+    from the source and loads, so the parser always matches the source."""
+    import os
+    import shutil
+
+    shutil.copy(os.path.join(foamdict._NATIVE_DIR, "foamdict.cpp"),
+                tmp_path / "foamdict.cpp")
+    so = tmp_path / "libfoamdict.so"
+    so.write_text("not a library")
+    os.utime(so, (1_000_000, 1_000_000))
+    monkeypatch.setattr(foamdict, "_NATIVE_DIR", str(tmp_path))
+    monkeypatch.setattr(foamdict, "_TRIED", False)
+    monkeypatch.setattr(foamdict, "_LIB", None)
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ compiler")
+    assert foamdict.native_available()
+    assert not foamdict._stale(str(so), str(tmp_path / "foamdict.cpp"))
+    assert foamdict.parse("a 1; b { c (1 2); }") == {"a": 1,
+                                                     "b": {"c": [1, 2]}}
+    assert [p.name for p in tmp_path.iterdir() if p.suffix == ".tmp"] == []

@@ -6,11 +6,13 @@ tutorial-validation practice (SURVEY.md §4):
     coupling correct);
   * an x<->y mirror-symmetric state stays mirror-symmetric (catches any
     axis-transposition bug in the per-axis flux assembly);
-  * checkpoint/resume round-trips the fused-kernel state pytree.
+  * checkpoint/resume round-trips the composable state pytree,
+    including the varScModel5 sensor and the lagged qgdFlux gradients.
 """
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from qgdsolver_tpu.core.mesh import Mesh
 from qgdsolver_tpu.core import bc as bcm
@@ -86,21 +88,34 @@ def test_xy_mirror_symmetry():
     np.testing.assert_allclose(rux, ruy.T, rtol=1e-12, atol=1e-12)
 
 
-def test_fused_state_checkpoint_roundtrip(tmp_path):
+@pytest.mark.parametrize("case", ["plain_2d", "varsc_2d", "varsc_3d"])
+def test_state_checkpoint_roundtrip(tmp_path, case):
+    """checkpoint.save/restore_latest round-trips every leaf of the state
+    bitwise — the varScModel5 sensor field and the lagged qgdFlux pbc
+    rows included — and a resumed run continues exactly like an
+    unbroken one."""
     from qgdsolver_tpu import cases
     from qgdsolver_tpu.utils import checkpoint
 
-    solver, s = cases.supersonic_jet(shape=(32, 16), dtype=np.float32)
-    step, to_fused, from_fused = solver.make_fused_step()
-    fs = to_fused(s)
-    fs = common.run_steps(jax.jit(step), fs, 5)
-    checkpoint.save(fs, str(tmp_path), step=5)
+    maker, shape = {
+        "plain_2d": (cases.supersonic_jet, (32, 16)),
+        "varsc_2d": (cases.supersonic_jet_varsc, (32, 16)),
+        "varsc_3d": (cases.supersonic_jet_3d_varsc, (8, 6, 6)),
+    }[case]
+    solver, s = maker(shape=shape, dtype=np.float32)
+    step = jax.jit(solver.make_step())
+    s = common.run_steps(step, s, 5)
+    if case != "plain_2d":
+        assert len(s.pbc) == 1
+    checkpoint.save(s, str(tmp_path), step=5)
     assert checkpoint.latest_step(str(tmp_path)) == 5
-    fs2 = checkpoint.restore_latest(fs, str(tmp_path))[0]
-    for a, b in zip(jax.tree_util.tree_leaves(fs),
-                    jax.tree_util.tree_leaves(fs2)):
+    s2 = checkpoint.restore_latest(s, str(tmp_path))[0]
+    for a, b in zip(jax.tree_util.tree_leaves(s),
+                    jax.tree_util.tree_leaves(s2)):
+        assert np.asarray(a).dtype == np.asarray(b).dtype
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    # resumed state continues identically to an unbroken run
-    fs_cont = common.run_steps(jax.jit(step), fs2, 3)
-    fs_ref = common.run_steps(jax.jit(step), fs, 3)
-    np.testing.assert_array_equal(np.asarray(fs_cont.p), np.asarray(fs_ref.p))
+    s_cont = common.run_steps(step, s2, 3)
+    s_ref = common.run_steps(step, s, 3)
+    for a, b in zip(jax.tree_util.tree_leaves(s_cont),
+                    jax.tree_util.tree_leaves(s_ref)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

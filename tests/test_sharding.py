@@ -1,4 +1,4 @@
-"""Serial vs domain-decomposed equivalence — the TPU analogue of the
+"""Serial vs domain-decomposed equivalence — this package's analogue of the
 reference's decomposePar+mpirun-vs-serial oracle practice (SURVEY.md §4).
 
 Runs on the 8 virtual CPU devices set up in conftest.py.

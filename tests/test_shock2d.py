@@ -91,7 +91,7 @@ def test_regular_reflection_flagship():
     # the ghost pressure and diverges within ~10 steps (measured: pbc
     # 1.7e7 -> 1.4e9).  The reference tutorials place qgdFlux on smooth
     # far-field patches only; the flagship qgdFlux path stays covered by
-    # the Sod flagship test + the fused/sharded parity tests.
+    # the Sod flagship tests (2D and 3D) + the sharded parity tests.
     bc_p = bcm.FieldBCs((
         (bcm.FixedValue(p1), bcm.ZeroGradient()),
         (bcm.ZeroGradient(), bcm.FixedValue(p2)),

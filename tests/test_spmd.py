@@ -1,9 +1,9 @@
 """shard_map composable-step decomposition (parallel.spmd + build_spmd_step).
 
-The production multi-chip path: the UNMODIFIED composable step of each solver
+The production multi-device path: the UNMODIFIED composable step of each solver
 runs per-block inside shard_map, with ghost_pad fetching partition-edge
 ghosts via ppermute and the Courant/CG/smooth reductions becoming
-pmax/pmin/psum — the TPU-native `decomposePar + mpirun <solver>` (SURVEY.md
+pmax/pmin/psum — this package's `decomposePar + mpirun <solver>` (SURVEY.md
 §2.4).  Every test is a serial-oracle comparison, the reference ecosystem's
 own parallel-validation practice (SURVEY.md §4).
 """
@@ -156,6 +156,26 @@ def test_3d_duct_spmd_parity():
     solver, state = cases.supersonic_duct_3d(shape=(16, 8, 6),
                                              dtype=np.float64)
     _parity(solver, state, 6, _dmesh(2, 2), rtol=1e-12)
+
+
+@pytest.mark.parametrize("pxy", [(4, 1), (2, 2), (1, 4), (2, 4)])
+def test_3d_flagship_varsc_qgdflux_spmd_parity(pxy):
+    """The 3D flagship config — varScModel5 sensor (cross-shard fvc::smooth
+    under psum), qgdFlux outlet (lagged pbc plane sharded tangentially),
+    array-valued profiled inlet — decomposed over x, x-y and y meshes
+    matches the serial composable step."""
+    solver, state = cases.supersonic_jet_3d_varsc(shape=(16, 8, 6),
+                                                  dtype=np.float64)
+    assert solver._flux_sides() == ((0, 1),)
+    # a density jump across the x and y partition planes keeps the sensor
+    # (and its smoothing across shards) active
+    x = np.asarray(solver.mesh.centers[0])[:, None, None]
+    y = np.asarray(solver.mesh.centers[1])[None, :, None]
+    bump = 1.0 + 0.4 * ((np.abs(x - 2.0) < 0.3) | (np.abs(y - 1.0) < 0.2))
+    state = state._replace(rho=state.rho * bump, rhoE=state.rhoE * bump)
+    s_ref, _ = _parity(solver, state, 6, _dmesh(*pxy), rtol=1e-12)
+    assert float(jnp.max(s_ref.sc)) > float(jnp.min(s_ref.sc)) + 0.01
+    assert float(jnp.max(jnp.abs(s_ref.pbc[0]))) > 0.0
 
 
 def _graded_faces(n, L, ratio, origin=0.0):
